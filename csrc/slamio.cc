@@ -3,7 +3,7 @@
 // The reference gets image decoding, dataset loading and the vocabulary
 // parser from native code (OpenCV imread in the Examples/* drivers,
 // DBoW2's TemplatedVocabulary::loadFromTextFile for the ~1M-line
-// ORBvoc.txt). This module provides the same substrate for the TPU
+// ORBvoc.txt). This module provides the same substrate for the JAX
 // framework: libpng decode with the GIL released, a C++ thread-pool
 // prefetcher that keeps the per-frame host loop free of I/O stalls, and
 // a vocabulary text parser ~50x faster than a Python tokenizer.

@@ -25,15 +25,9 @@ def main():
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--trajectory", default="jitter", choices=["jitter", "forward", "orbit"])
     ap.add_argument("--n-features", type=int, default=600)
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     ap.add_argument("--local-ba", action="store_true", help="enable local BA")
     ap.add_argument("--save", default=None, help="save TUM trajectory to file")
     args = ap.parse_args()
-
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
 
@@ -50,11 +44,6 @@ def main():
         bf=K[0] * b,
         n_features=args.n_features,
         n_levels=4,
-        # default map capacities: the (600-feat, 4-level, 64-KF, 16384-pt)
-        # combination deterministically crashes the current XLA:TPU
-        # runtime inside the keyframe-create program (each half of the
-        # config compiles and runs fine alone — an upstream compiler
-        # fault, reproduced 2026-08-21; see BASELINE.md)
         enable_local_ba=args.local_ba,
         match_th_scale=1.5,
     )

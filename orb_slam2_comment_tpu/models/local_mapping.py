@@ -86,8 +86,7 @@ def update_point_descriptors(m: ms.MapState) -> ms.MapState:
     O = MAX_DESC_OBS
 
     # Invert the observation table by ONE sort instead of a scan of Kmax
-    # scatter steps (the scan cost ~30ms/keyframe at the 128-KF tier and
-    # scales linearly with KF capacity): sort the flattened (point id,
+    # scatter steps (whose cost scales linearly with KF capacity): sort the flattened (point id,
     # descriptor) pairs by point id, compute each entry's rank within its
     # point's segment with a vectorized searchsorted, and scatter the
     # first O ranks into the per-point slots in one shot.
@@ -612,9 +611,7 @@ def triangulate_with_neighbor(
     feat2 = idx2[order][:max_new]
     pmax = m.pt_pos.shape[0]
     # New slots are CONTIGUOUS (pt_base + arange): write them with
-    # dynamic-slice updates instead of general scatters — TPU scatter is
-    # sort-based and the 10 per-field scatters dominated this kernel's
-    # device time. When the cursor cannot fit a full block, create
+    # dynamic-slice updates instead of 10 per-field general scatters. When the cursor cannot fit a full block, create
     # nothing this pass (compaction/growth reclaims slots; the old
     # per-row clip degraded to partial creation in the same regime).
     base_ok = pt_base <= pmax - max_new
@@ -1137,7 +1134,7 @@ def _fuse_targets(m: ms.MapState, kf_id: jax.Array, n_fuse: int, n_ext: int):
     # observation table: pack "point p observed by first-degree neighbor
     # r" as bit r of a [pmax] mask, gather it once over kf_obs, and
     # reduce each bit — a scan of n_fuse covisibility_weights calls paid
-    # n_fuse full-table gathers (~12 ms device at the bench shapes).
+    # n_fuse full-table gathers.
     fobs = m.kf_obs[jnp.clip(first, 0, kmax - 1)]             # [n_fuse, N]
     fok = ok1[:, None] & (fobs >= 0)
     fpid = jnp.clip(fobs, 0, pmax - 1)
@@ -1226,11 +1223,11 @@ def _mapper_kernel(m: ms.MapState, kf_id: jax.Array, pt_base: jax.Array,
 # chunked mapper machine (P6 — the reference's LocalMapping THREAD)
 #
 # The monolithic _mapper_kernel above runs the whole LocalMapping pass as
-# one ~100-250ms device program, which convoys every in-flight frame
-# behind a keyframe (BENCH r3: the entire mean-vs-median throughput gap).
+# one long device program, which convoys every in-flight frame behind a
+# keyframe (the mean-vs-median throughput gap).
 # The machine splits the pass into bounded per-frame chunks executed at
 # the END of every frame program (tracking._frame_step_core): one chunk
-# per frame, state carried in DeviceTrackState. This is the TPU-native
+# per frame, state carried in DeviceTrackState. This is the device-side
 # rebuild of the reference's mapping-thread semantics:
 #   - pipeline parallelism: mapping progresses while tracking continues
 #     (LocalMapping::Run, src/LocalMapping.cc:47-112)
@@ -1302,7 +1299,7 @@ def empty_machine(cfg: SlamConfig, n_slots: int) -> MapperMachine:
 
 def _phase_list(cfg: SlamConfig):
     """Static phase table for one keyframe's mapping pass. Each entry is
-    one bounded device chunk (~3-25ms); the whole table is the reference's
+    one bounded device chunk; the whole table is the reference's
     Run-loop body (src/LocalMapping.cc:47-112) in order."""
     phases = [("start",)]
     n_tri = min(cfg.tri_neighbors, cfg.max_keyframes)

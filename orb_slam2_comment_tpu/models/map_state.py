@@ -202,7 +202,7 @@ def covisibility_matrix(m: MapState) -> jax.Array:
     KeyFrame::UpdateConnections, src/KeyFrame.cc:289-330, for every KF).
     Computed as A @ A^T with A the [Kmax, Pmax] observation indicator,
     chunked over points so the indicator never materializes at full width;
-    each chunk is one MXU matmul.
+    each chunk is one matmul.
     """
     kmax, n_feat = m.kf_obs.shape
     pmax = m.pt_pos.shape[0]

@@ -9,7 +9,7 @@ Pipeline per candidate keyframe from the BoW database:
      (SearchByProjection(F, KF, ...), src/ORBmatcher.cc:1472) and a final
      optimization; accept at >=50 inliers.
 
-TPU-native shape: the whole candidate ladder is ONE jitted program —
+Device shape: the whole candidate ladder is ONE jitted program —
 `lax.map` over a fixed candidate axis with masked validity, one host sync
 per LOST frame. The reference bounds per-frame reloc cost by doing 5
 RANSAC iterations per candidate per outer loop (Tracking.cc:1405-1411);
@@ -63,8 +63,8 @@ def _reloc_kernel(m: ms.MapState, db_groups: jax.Array, cand_ids: jax.Array,
         enabled = c >= 0
         # 1. Descriptor matching to the candidate KF's map points. The
         # reference scopes this to shared FeatureVector nodes (SearchByBoW)
-        # — a CPU pruning trick that saves nothing on TPU, where the dense
-        # Hamming matrix is one MXU matmul (same switch as
+        # — a CPU pruning trick that saves nothing on an accelerator, where
+        # the dense Hamming matrix is one matmul (same switch as
         # loop_closing._compute_sim3). Mutual-best + ratio + rotation
         # consistency are the precision gates.
         kf_obs = m.kf_obs[kf_j]

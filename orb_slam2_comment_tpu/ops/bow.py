@@ -8,7 +8,7 @@ ORBvoc.txt is stripped from this mirror (.MISSING_LARGE_BLOBS), so this
 module both *trains* a vocabulary (binary k-medians, host-side) and runs
 the transform on device.
 
-TPU redesign:
+Device redesign:
 - the tree lives as flat arrays (children table + packed centroids);
 - descent is L gather+argmin steps over all descriptors at once, with the
   Hamming-to-children computed via the same signed-bits matmul as
@@ -16,7 +16,7 @@ TPU redesign:
   descent, header:355, becomes one batched kernel);
 - BoW vectors are DENSE [n_words] arrays — at the few-thousand-word
   vocabularies this framework trains, dense scoring is a single matmul,
-  which beats sparse-map intersection on TPU by construction. (The
+  which beats sparse-map intersection on an accelerator by construction. (The
   reference's 1M-word text vocabulary can be loaded with load_orb_vocab
   and descended the same way; scoring then uses the same dense path over
   active words.)

@@ -1,6 +1,6 @@
 """SE(3) / Sim(3) Lie-group math, camera models, and robust kernels.
 
-TPU-native replacement for the reference's g2o type layer
+Device-side replacement for the reference's g2o type layer
 (`Thirdparty/g2o/g2o/types/se3quat.h:41`, `types/sim3.h`) and `Converter`
 (`src/Converter.cc`). Everything is pure jnp, batched-friendly (all
 functions vmap cleanly), float32, and differentiable — optimizer Jacobians
@@ -374,8 +374,8 @@ def triangulate_linear(P1, P2, uv1, uv2):
 
     Mirrors `Initializer::Triangulate` (src/Initializer.cc) /
     `LocalMapping::CreateNewMapPoints` SVD path (src/LocalMapping.cc:310).
-    Solves the 4x4 system via eigendecomposition of A^T A (batched-safe on
-    TPU, avoids full SVD).
+    Solves the 4x4 system via eigendecomposition of A^T A (batched-safe,
+    avoids full SVD).
     """
     rows = jnp.stack(
         [
@@ -388,7 +388,7 @@ def triangulate_linear(P1, P2, uv1, uv2):
     )
     AtA = jnp.einsum("...ki,...kj->...ij", rows, rows)
     # smallest eigenvector by inverse iteration (batched 4x4 eigh lowers to
-    # a slow generic path on TPU; 4 shifted solves converge to machine
+    # a slow generic path; 4 shifted solves converge to machine
     # precision for these well-separated spectra)
     trace = jnp.trace(AtA, axis1=-2, axis2=-1)[..., None, None]
     M = AtA + 1e-7 * trace * jnp.eye(4, dtype=AtA.dtype) + 1e-12 * jnp.eye(4)

@@ -1,17 +1,20 @@
-"""Pose-only LM as ONE Pallas TPU kernel.
+"""Pose-only LM as ONE Pallas kernel for the GPU (Triton route).
 
 `optim.pose_optimize` (the reference's Optimizer::PoseOptimization,
-src/Optimizer.cc:239-451) runs 4 rounds x 10 LM iterations. As XLA ops the
-40 sequential iterations cost ~8-10 small kernels each — on a TPU the
-per-kernel pipeline bubbles dominate the (tiny) [N]-edge math. This kernel
-keeps the WHOLE optimization on-core: edge arrays live in VMEM as [1, N]
-rows, the pose is 12 scalars, each LM iteration is ~150 vector ops plus a
-hand-unrolled 6x6 Cholesky — one kernel launch for all 40 iterations.
+src/Optimizer.cc:239-451) runs 4 rounds x 10 LM iterations. As XLA ops
+each iteration is a handful of small kernels inside a device while loop,
+so the 40 sequential iterations pay per-launch and loop-predicate costs
+against a few microseconds of [N]-edge math. This kernel runs the whole
+optimization in one Triton program: the edge arrays are [N_pow2] blocks
+held in registers, the pose is 12 scalars, and each iteration is the
+closed-form Jacobians, 27 block reductions for the 6x6 normal equations
+and an unrolled 6x6 Cholesky.
 
-Matches optim.pose_optimize semantics exactly (same damping schedule,
-Huber rounds, chi2 reclassification between rounds, accept/reject rule);
-numerics agree to float tolerance (Jacobians here are closed-form, there
-via jacfwd). Validated against the XLA path in tests/test_optim.py.
+Same semantics as optim.pose_optimize (damping schedule, Huber rounds,
+chi2 reclassification between rounds, accept/reject rule); the
+Jacobians are the closed form of optim._edge_jacobians. Checked against
+the XLA path in interpret mode by tests/test_optim.py and on the card by
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from orb_slam2_comment_tpu.ops import geometry as geo
 from orb_slam2_comment_tpu.ops.optim import PoseOptResult
 
 _EPS = 1e-12
+_POSE_W = 16  # pose block: 9 rotation + 3 translation scalars, padded
 
 
 def _chol6_solve(H, b):
@@ -105,30 +109,36 @@ def _compose(Rd, td, R, t):
     return Rn, tn
 
 
+def _wsum(pairs):
+    """Block sum of sum_k a_k * b_k over the (a, b) pairs, skipping the
+    structural zeros (None) of the Jacobian."""
+    terms = [a * b for a, b in pairs if a is not None and b is not None]
+    if not terms:
+        return jnp.float32(0.0)
+    return jnp.sum(sum(terms[1:], terms[0]))
+
+
 def _make_kernel(K, bf, rounds, iters, robust_rounds):
     fx, fy, cx, cy = K
 
     def kernel(
-        xw_ref, obs_ref, invs2_ref, comp_ref, valid_ref, delta_ref,
-        chi2th_ref, t0_ref, tout_ref, inl_ref,
+        x_ref, y_ref, z_ref, u_ref, v_ref, ur_ref, invs2_ref, comp_ref,
+        valid_ref, delta_ref, chi2th_ref, t0_ref, tout_ref, inl_ref,
     ):
-        X = xw_ref[:]
-        O = obs_ref[:]
-        invs2 = invs2_ref[0:1, :]
-        comp = comp_ref[0:1, :]
-        valid0 = valid_ref[0:1, :]
-        delta = delta_ref[0:1, :]
-        chi2_th = chi2th_ref[0:1, :]
-        x_r, y_r, z_r = X[0:1, :], X[1:2, :], X[2:3, :]
-        u_o, v_o, ur_o = O[0:1, :], O[1:2, :], O[2:3, :]
-        zero_row = jnp.zeros_like(x_r)
+        x_r, y_r, z_r = x_ref[...], y_ref[...], z_ref[...]
+        u_o, v_o, ur_o = u_ref[...], v_ref[...], ur_ref[...]
+        invs2 = invs2_ref[...]
+        comp = comp_ref[...]
+        valid0 = valid_ref[...]
+        delta = delta_ref[...]
+        chi2_th = chi2th_ref[...]
 
         def residuals(pose):
             (R00, R01, R02, R10, R11, R12, R20, R21, R22, t0, t1, t2) = pose
             xc = R00 * x_r + R01 * y_r + R02 * z_r + t0
             yc = R10 * x_r + R11 * y_r + R12 * z_r + t1
             zc = R20 * x_r + R21 * y_r + R22 * z_r + t2
-            zi = 1.0 / jnp.where(jnp.abs(zc) < 1e-9, 1e-9, zc)
+            zi = 1.0 / jnp.maximum(zc, 1e-9)  # as geometry.project_stereo
             up = fx * xc * zi + cx
             vp = fy * yc * zi + cy
             urp = up - bf * zi
@@ -144,7 +154,7 @@ def _make_kernel(K, bf, rounds, iters, robust_rounds):
                 return jnp.sum(c2)
             d2 = delta * delta
             rho = jnp.where(
-                c2 <= d2 * mask,
+                c2 <= d2,
                 c2,
                 2.0 * delta * jnp.sqrt(jnp.maximum(c2, _EPS)) - d2,
             )
@@ -155,46 +165,45 @@ def _make_kernel(K, bf, rounds, iters, robust_rounds):
                 pose, lam, cost = carry
                 r, (xc, yc, zc, zi) = residuals(pose)
                 ru, rv, rur = r
-                c2 = chi2_of(r) * mask
                 if robust:
-                    hw = jnp.minimum(
-                        1.0, delta / jnp.sqrt(jnp.maximum(c2, _EPS))
+                    c2 = chi2_of(r) * mask
+                    hw = jnp.where(
+                        c2 <= delta * delta,
+                        1.0,
+                        delta / jnp.sqrt(jnp.maximum(c2, _EPS)),
                     )
+                    w = invs2 * hw * mask
                 else:
-                    hw = 1.0
-                w = invs2 * hw * mask
-                # closed-form dr/dxi (r = obs - pred, left-increment se3,
-                # dXc/dxi = [I | -[Xc]_x]); derivation checked against the
-                # jacfwd path in tests
-                gxu = fx * zi
-                gzu = -fx * xc * zi * zi
-                gyv = fy * zi
-                gzv = -fy * yc * zi * zi
-                gzur = gzu + bf * zi * zi
-                Ju = [
-                    -gxu, zero_row, -gzu,
-                    -gzu * yc, -(gxu * zc - gzu * xc), gxu * yc,
-                ]
-                Jv = [
-                    zero_row, -gyv, -gzv,
-                    gyv * zc - gzv * yc, gzv * xc, -gyv * xc,
-                ]
-                Jur = [
-                    -gxu, zero_row, -gzur,
-                    -gzur * yc, -(gxu * zc - gzur * xc), gxu * yc,
-                ]
+                    w = invs2 * mask
                 wc = w * comp
+                # dr/dxi = -dpred/dXc [I | -[Xc]x] (optim._edge_jacobians);
+                # rows (u, v, ur), None marks a structural zero
+                D00 = -fx * zi
+                D02 = fx * xc * zi * zi
+                D11 = -fy * zi
+                D12 = fy * yc * zi * zi
+                D22 = (fx * xc - bf) * zi * zi
+                Ju = [D00, None, D02, D02 * yc, D00 * zc - D02 * xc,
+                      -D00 * yc]
+                Jv = [None, D11, D12, -D11 * zc + D12 * yc, -D12 * xc,
+                      D11 * xc]
+                Jur = [D00, None, D22, D22 * yc, D00 * zc - D22 * xc,
+                       -D00 * yc]
+                # weight the rows BEFORE the products: an unweighted edge
+                # (w = 0) behind the camera has |J| ~ 1e20, whose square
+                # overflows to inf and 0 * inf = NaN would poison H
+                rows = [(w, Ju, ru), (w, Jv, rv), (wc, Jur, rur)]
+                wrows = [[None if j is None else wt * j for j in J]
+                         for wt, J, _ in rows]
                 H = {}
                 b = [None] * 6
                 for i2 in range(6):
                     for j2 in range(i2 + 1):
-                        H[(i2, j2)] = jnp.sum(
-                            w * (Ju[i2] * Ju[j2] + Jv[i2] * Jv[j2])
-                            + wc * Jur[i2] * Jur[j2]
-                        )
-                    b[i2] = -jnp.sum(
-                        w * (Ju[i2] * ru + Jv[i2] * rv) + wc * Jur[i2] * rur
-                    )
+                        H[(i2, j2)] = _wsum(
+                            [(wj[i2], J[j2]) for wj, (_, J, _) in
+                             zip(wrows, rows)])
+                    b[i2] = -_wsum(
+                        [(wj[i2], r) for wj, (_, _, r) in zip(wrows, rows)])
                 for i2 in range(6):
                     H[(i2, i2)] = H[(i2, i2)] * (1.0 + lam) + 1e-9
                 dx = _chol6_solve(H, b)
@@ -202,9 +211,7 @@ def _make_kernel(K, bf, rounds, iters, robust_rounds):
                 R = [list(pose[0:3]), list(pose[3:6]), list(pose[6:9])]
                 t = list(pose[9:12])
                 Rn, tn = _compose(Rd, td, R, t)
-                pose_new = tuple(
-                    Rn[0] + Rn[1] + Rn[2] + tn
-                )
+                pose_new = tuple(Rn[0] + Rn[1] + Rn[2] + tn)
                 r_new, _ = residuals(pose_new)
                 new_cost = robust_cost(r_new, mask, robust)
                 accept = new_cost < cost
@@ -228,25 +235,31 @@ def _make_kernel(K, bf, rounds, iters, robust_rounds):
             # chi2 reclassification (src/Optimizer.cc:391-428)
             r, (_, _, zc, _) = residuals(pose)
             c2 = chi2_of(r)
-            new_mask = (
-                (c2 <= chi2_th) & (zc > 0) & (valid0 > 0)
-            ).astype(jnp.float32)
+            new_mask = jnp.where(
+                (c2 <= chi2_th) & (zc > 0) & (valid0 > 0), 1.0, 0.0
+            )
             return pose, new_mask
 
-        pose = tuple(t0_ref[0, i] for i in range(12))
+        lane = jax.lax.broadcasted_iota(jnp.int32, (_POSE_W,), 0)
+        t0v = t0_ref[...]
+        pose = tuple(
+            jnp.sum(jnp.where(lane == i, t0v, 0.0)) for i in range(12)
+        )
         mask = valid0
         for rd in range(rounds):
             pose, mask = lm_round(pose, mask, robust=rd < robust_rounds)
-        # Mosaic forbids scalar stores to VMEM; scatter the 12 pose scalars
-        # into one lane-indexed row and store it with a single vector write.
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_row = jnp.zeros((1, 128), jnp.float32)
+        out = jnp.zeros((_POSE_W,), jnp.float32)
         for i in range(12):
-            out_row = jnp.where(lane == i, pose[i], out_row)
-        tout_ref[:] = out_row
-        inl_ref[:] = mask
+            out = jnp.where(lane == i, pose[i], out)
+        tout_ref[...] = out
+        inl_ref[...] = mask
 
     return kernel
+
+
+def _num_warps(n_pow2: int) -> int:
+    """About eight edges per thread, 4 to 16 warps."""
+    return max(4, min(16, n_pow2 // 256))
 
 
 @functools.partial(
@@ -267,33 +280,26 @@ def pose_optimize_pallas(
     iters: int = C.POSE_OPT_ITS_PER_ROUND,
     interpret: bool = False,
 ) -> PoseOptResult:
-    """Drop-in replacement for optim.pose_optimize as one Pallas kernel."""
+    """Drop-in replacement for optim.pose_optimize as one Triton kernel."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pltriton
 
     n = Xw.shape[0]
-    n_pad = -(-n // 128) * 128
+    n_pad = max(16, 1 << (n - 1).bit_length())  # Triton blocks are 2^k
 
-    def row8(x, fill=0.0):
-        x = jnp.pad(
-            x.astype(jnp.float32), ((0, n_pad - n),), constant_values=fill
+    def vec(x, fill=0.0):
+        return jnp.pad(
+            x.astype(jnp.float32), (0, n_pad - n), constant_values=fill
         )
-        return jnp.zeros((8, n_pad), jnp.float32).at[0].set(x)
 
-    XwT = jnp.zeros((8, n_pad), jnp.float32).at[:3, :n].set(
-        Xw.astype(jnp.float32).T
-    )
-    obsT = jnp.zeros((8, n_pad), jnp.float32).at[:3, :n].set(
-        obs.astype(jnp.float32).T
-    )
     inv_s2 = inv_sigma2_levels[
         jnp.clip(octave, 0, inv_sigma2_levels.shape[0] - 1)
     ]
     delta = jnp.where(is_stereo, C.HUBER_STEREO, C.HUBER_MONO)
     chi2th = jnp.where(is_stereo, C.CHI2_STEREO, C.CHI2_MONO)
 
-    T = geo.orthonormalize_T(Tcw0)
-    t0 = jnp.zeros((1, 128), jnp.float32).at[0, :12].set(
+    T = geo.orthonormalize_T(Tcw0).astype(jnp.float32)
+    t0 = jnp.zeros((_POSE_W,), jnp.float32).at[:12].set(
         jnp.concatenate([T[:3, :3].reshape(-1), T[:3, 3]])
     )
 
@@ -301,21 +307,21 @@ def pose_optimize_pallas(
     tout, inl = pl.pallas_call(
         kernel,
         out_shape=(
-            jax.ShapeDtypeStruct((1, 128), jnp.float32),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
+            jax.ShapeDtypeStruct((_POSE_W,), jnp.float32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
         ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.VMEM)] * 8,
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.VMEM),
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.VMEM),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=_num_warps(n_pad), num_stages=1
         ),
         interpret=interpret,
+        name="pose_lm",
     )(
-        XwT, obsT, row8(inv_s2), row8(is_stereo.astype(jnp.float32)),
-        row8(valid.astype(jnp.float32)), row8(delta, 1.0),
-        row8(chi2th, 1.0), t0,
+        vec(Xw[:, 0]), vec(Xw[:, 1]), vec(Xw[:, 2], 1.0),
+        vec(obs[:, 0]), vec(obs[:, 1]), vec(obs[:, 2]),
+        vec(inv_s2), vec(is_stereo), vec(valid), vec(delta, 1.0),
+        vec(chi2th, 1.0), t0,
     )
-    p = tout[0, :12]
-    Tcw = geo.orthonormalize_T(geo.make_T(p[:9].reshape(3, 3), p[9:12]))
-    inliers = (inl[0, :n] > 0) & valid
+    Tcw = geo.orthonormalize_T(geo.make_T(tout[:9].reshape(3, 3), tout[9:12]))
+    inliers = (inl[:n] > 0) & valid
     return PoseOptResult(Tcw=Tcw, inliers=inliers, n_inliers=jnp.sum(inliers))

@@ -1,18 +1,18 @@
-"""Data association: masked Hamming-distance matching on the MXU.
+"""Data association: masked Hamming-distance matching as matmuls.
 
-TPU-native replacement for the reference `ORBmatcher` (src/ORBmatcher.cc):
+Device-side replacement for the reference `ORBmatcher` (src/ORBmatcher.cc):
 its 10 search strategies are all "find the best Hamming match subject to a
 candidate predicate". Here the predicate becomes a mask over a dense
 [N, M] distance matrix computed as a single matmul:
 
     hamming(a, b) = (256 - signed_bits(a) @ signed_bits(b)^T) / 2
 
-with signed bits in bf16 — integer-exact (|sums| <= 256) and rides the MXU
-at full throughput. Candidate sparsity (search windows, scale bands,
+with signed bits in bf16 — integer-exact (|sums| <= 256) and at the
+matrix units' bf16 rate. Candidate sparsity (search windows, scale bands,
 epipolar bands, BoW nodes) that the reference exploits with grids and
 inverted indices (Frame::GetFeaturesInArea, src/Frame.cc:327-394) is
-expressed as masks; at N,M ~ 2000 the dense product is ~8 MFLOP per pair —
-noise on a TPU, and it removes every data-dependent shape.
+expressed as masks; at N,M ~ 2000 the dense product is ~2 GFLOP per pair
+— small for an accelerator, and it removes every data-dependent shape.
 
 Search strategies map to the reference as:
 - match_window            <- SearchForInitialization (src/ORBmatcher.cc:405)

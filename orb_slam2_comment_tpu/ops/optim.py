@@ -10,7 +10,7 @@ Implements the complete factor vocabulary of the reference's Optimizer
 - sim3_optimize            <- Optimizer::OptimizeSim3 (:1046-1244)
 - essential_graph_optimize <- Optimizer::OptimizeEssentialGraph (:781-1044)
 
-Design notes (TPU-first, not a g2o translation):
+Design notes (accelerator-first, not a g2o translation):
 - Jacobians come from jax.jacfwd of the residual against a local tangent
   perturbation (left-multiplied se3/sim3 exp), replacing the hand-written
   linearizeOplus of types_six_dof_expmap.cpp / types_seven_dof_expmap.cpp.
@@ -20,7 +20,7 @@ Design notes (TPU-first, not a g2o translation):
 - Landmarks are eliminated by an explicit Schur complement (the
   setMarginalized(true) path of g2o's BlockSolver_6_3): Hpp is a batch of
   3x3 blocks inverted in closed form, and the reduced camera system is
-  built with one dense matmul (small windows) — the MXU-friendly
+  built with one dense matmul (small windows) — the matmul-friendly
   formulation of sparse BA.
 - LM damping uses multiplicative lambda on the block diagonals with
   accept/reject, like g2o's OptimizationAlgorithmLevenberg.
@@ -56,8 +56,8 @@ def _residual_unified(Tcw, Xw, obs, K, bf):
 
 def _edge_jacobians_ad(Tcw, Xw, obs, K, bf):
     """jacfwd reference implementation (kept for the parity test — the
-    analytic version below is ~3x cheaper per edge and bit-equivalent up
-    to float rounding)."""
+    analytic version below is cheaper per edge and bit-equivalent up to
+    float rounding)."""
 
     def r_of(dc, dp):
         T = geo.se3_exp(dc) @ Tcw
@@ -85,7 +85,7 @@ def _edge_jacobians(Tcw, Xw, obs, K, bf):
                      [fx/z, 0, (-fx x + bf)/z^2]]
         dXc/d[rho, phi] = [I | -[Xc]x],   dXc/dXw = R
     and dr = -dpred/dXc. Replaces a 9-tangent jacfwd evaluation per edge
-    (the LM assemble pass was op-count bound on TPU)."""
+    (the LM assemble pass is op-count bound)."""
     fx, fy, cx, cy = K
     Xc = geo.transform_points(Tcw, Xw)
     pred = geo.project_stereo(K, bf, Xc)
@@ -96,8 +96,8 @@ def _edge_jacobians(Tcw, Xw, obs, K, bf):
     zr = jnp.zeros_like(x)
     # D = dr/dXc (sparse: D01 = D10 = D21 = 0). Everything below is
     # written ELEMENTWISE on purpose: stacking into [...,3,3] and calling
-    # einsum lowers to tiny batched 3x3 dot_generals whose MXU padding
-    # costs more than the whole jacfwd it replaced (measured on the v5e).
+    # einsum lowers to tiny batched 3x3 dot_generals, which XLA pads to
+    # its matrix tiles.
     D00 = -fx * invz
     D02 = fx * x * invz2
     D11 = -fy * invz
@@ -162,16 +162,8 @@ class PoseOptResult(NamedTuple):
     n_inliers: jax.Array   # scalar int32
 
 
-# route pose_optimize through the single-kernel Pallas LM on TPU (see
-# ops/lm_pallas.py); the XLA path below remains the reference semantics
-# and the CPU/test path. Env-overridable (USE_PALLAS_LM=0/1) for hardware
-# A/B runs under bench.py defaults.
 import os as _os
 
-USE_PALLAS_LM = _os.environ.get("USE_PALLAS_LM", "1") not in ("0", "false", "False")
-# Pallas local-BA system assembly (ops/lba_pallas.py); XLA fallback
-# remains the CPU/test path and the reference semantics.
-USE_PALLAS_LBA = _os.environ.get("USE_PALLAS_LBA", "1") not in ("0", "false", "False")
 # A/B knob: restore the r4 delayed-acceptance schedule (n_iters trips,
 # initial evaluation counted, trailing candidate dropped) for accuracy
 # bisects.
@@ -196,15 +188,32 @@ def pose_optimize(
 ) -> PoseOptResult:
     """Motion-only BA: 4 rounds x 10 LM iterations with chi2 inlier
     reclassification between rounds; Huber active for the first two rounds
-    (src/Optimizer.cc:239-451)."""
-    if USE_PALLAS_LM and jax.default_backend() == "tpu":
-        from orb_slam2_comment_tpu.ops.lm_pallas import pose_optimize_pallas
+    (src/Optimizer.cc:239-451).
 
-        return pose_optimize_pallas(
-            Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels,
-            K, bf, rounds=rounds, iters=iters,
+    On a GPU the whole LM runs as one Triton kernel (ops/lm_pallas.py);
+    `pose_optimize_xla` is the reference semantics and the CPU path."""
+    if jax.default_backend() == "gpu":
+        from orb_slam2_comment_tpu.ops.lm_pallas import (
+            pose_optimize_pallas as impl,
         )
+    else:
+        impl = pose_optimize_xla
+    return impl(
+        Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels,
+        K, bf, rounds=rounds, iters=iters,
+    )
 
+
+@functools.partial(
+    jax.jit, static_argnames=("K", "bf", "rounds", "iters")
+)
+def pose_optimize_xla(
+    Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels,
+    K: tuple, bf: float,
+    rounds: int = C.POSE_OPT_ROUNDS,
+    iters: int = C.POSE_OPT_ITS_PER_ROUND,
+) -> PoseOptResult:
+    """`pose_optimize` as plain XLA ops (same arguments)."""
     batched_jac = jax.vmap(_edge_jacobians, in_axes=(None, 0, 0, None, None))
     chi2_th = jnp.where(is_stereo, C.CHI2_STEREO, C.CHI2_MONO)
     delta = jnp.where(is_stereo, C.HUBER_STEREO, C.HUBER_MONO)
@@ -309,8 +318,8 @@ def _inv33(M):
 
 
 class LBASystem(NamedTuple):
-    """One linearization of the local-BA window, in MXU/VPU-friendly
-    layouts (point axis LAST so every elementwise op tiles (8,128))."""
+    """One linearization of the local-BA window, in matmul-friendly
+    layouts (point axis LAST, so elementwise ops run along the long axis)."""
 
     Hcc: jax.Array    # [F, 6, 6] free-camera blocks
     bc: jax.Array     # [F, 6]
@@ -348,16 +357,6 @@ def _lba_core(
     batched_jac = jax.vmap(_edge_jacobians, in_axes=(0, 0, 0, None, None))
     cam_free_mask = (~prob.cam_fixed) & prob.cam_valid
 
-    use_pallas = (
-        USE_PALLAS_LBA
-        and cam_major
-        and jax.default_backend() == "tpu"
-    )
-    if use_pallas:
-        from orb_slam2_comment_tpu.ops import lba_pallas
-
-        prepped = lba_pallas.prep_problem(prob, inv_sigma2_levels, F)
-
     def assemble(cam_T, pts, obs_ok, robust):
         T_o = cam_T[prob.obs_cam]
         X_o = pts[prob.obs_pt]
@@ -394,12 +393,11 @@ def _lba_core(
         n_in = jnp.sum(obs_ok & (chi2 <= chi2_th))
         return jnp.sum(jnp.where(robust, rho, chi2)), n_in
 
-    def build_system_xla(cam_T, pts, obs_ok, robust) -> LBASystem:
-        # Block assembly WITHOUT scatters (TPU scatter-add is sort-based
-        # and dominated the whole mapper pass). The observation table is
+    def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
+        # Block assembly WITHOUT scatters. The observation table is
         # REGULAR in the camera axis (obs_cam = repeat(arange)), so camera
         # blocks are reshape-sums; the irregular point axis becomes a
-        # per-camera one-hot matmul (MXU).
+        # per-camera one-hot matmul.
         r, Jc, Jp, w, chi2, _ = assemble(cam_T, pts, obs_ok, robust)
         cost, n_in = cost_from_chi2(chi2, obs_ok, robust)
         JcW = Jc * w[:, :, None]                      # [O, 3, 6]
@@ -418,7 +416,7 @@ def _lba_core(
             packed_o = jnp.concatenate([hpp_o, bp_o, e_o], axis=-1).reshape(
                 Nc, N_per, 30)
             # onehot_pt is CONSTANT across LM iterations (closure over the
-            # problem layout, built once below): one batched MXU einsum
+            # problem layout, built once below): one batched einsum
             # replaces 5 sort-based scatter-adds per iteration. Output
             # layout ckp puts the point axis LAST for the Schur math.
             out = jnp.einsum(
@@ -450,13 +448,6 @@ def _lba_core(
             E = E4[:F].transpose(0, 2, 3, 1)
         return LBASystem(Hcc=Hcc, bc=bc, Hpp9=Hpp9, bp3=bp3, E=E,
                          cost=cost, n_in=n_in)
-
-    if use_pallas:
-        def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
-            return lba_pallas.build_system(
-                prepped, cam_T, pts, obs_ok, robust, K, bf)
-    else:
-        build_system = build_system_xla
 
     def solve_from_system(sys_: LBASystem, lam, cam_T, pts):
         """One damped Gauss-Newton step from an assembled system: Schur
@@ -573,11 +564,11 @@ def _lba_core(
         # ACCEPTED state, whose cost/inliers are known
         return (ref_T, ref_pts, lam, ref_cost, ref_nin, obs_ok)
 
-    if cam_major and not use_pallas:
+    if cam_major:
         N_per_ = prob.obs_cam.shape[0] // Nc
         pl_ = prob.obs_pt.reshape(Nc, N_per_)
         # bf16: the one-hot is exact 0/1 and the [Nc, N_per, Np] buffer is
-        # the LM iteration's largest HBM tenant — halving it halves the
+        # the LM iteration's largest device-memory tenant — halving it halves the
         # einsum's bandwidth cost; accumulation stays f32 via
         # preferred_element_type inside einsum
         onehot_pt = (
@@ -672,7 +663,7 @@ def local_bundle_adjustment(
 
     The reduced camera system is built densely: with E the [Nc,Np] grid of
     6x3 cam-point coupling blocks (one obs per pair), S = Hcc - E Hpp^-1 E^T
-    is a single [6Nc, 3Np] @ [3Np, 6Nc] matmul — ideal MXU shape for the
+    is a single [6Nc, 3Np] @ [3Np, 6Nc] matmul — a dense shape for the
     <=~100-camera windows the covisibility graph produces.
     """
     carry = lba_init(prob, inv_sigma2_levels, K, bf, cam_major)
@@ -794,7 +785,7 @@ def essential_graph_optimize(
     edges with identity information (Optimizer::OptimizeEssentialGraph,
     src/Optimizer.cc:781-1044). Solved with damped GN; the normal matrix
     is assembled densely ([7K, 7K]) — fine for the <=1-2k keyframes the
-    essential graph reaches, and one Cholesky on the MXU beats a sparse
+    essential graph reaches, and one dense Cholesky beats a sparse
     solver at this scale.
     """
     Kn = S0.shape[0]
@@ -1007,7 +998,7 @@ def _assemble_blocks(prob: BAProblem, cam_T, pts, obs_ok, inv_sigma2_levels,
     normal equations. Everything here is segment-sum shaped: when the
     observation arrays are sharded across devices, XLA turns the
     scatter-adds into psums — this is the distributed-BA communication
-    pattern (SURVEY.md §2c TPU-native equivalent)."""
+    pattern (SURVEY.md §2c)."""
     Nc, Np = cam_T.shape[0], pts.shape[0]
     delta = jnp.where(prob.obs_stereo, C.HUBER_STEREO, C.HUBER_MONO)
     T_o = cam_T[prob.obs_cam]
@@ -1217,7 +1208,7 @@ def gba_chunk(prob: BAProblem, inv_sigma2_levels, carry, it0,
     """Advance chunked GBA by n_iters LM iterations from `carry`. Each
     call is ONE bounded device program, so the host can interleave frame
     programs between chunks and drop the remaining chunks on abort — the
-    TPU equivalent of the reference's concurrent, interruptible GBA
+    device-side equivalent of the reference's concurrent, interruptible GBA
     thread (src/LoopClosing.cc:575-579 + mbStopGBA)."""
     lm_step = _gba_make_lm_step(
         prob, inv_sigma2_levels, K, bf, cg_iters, robust_iters

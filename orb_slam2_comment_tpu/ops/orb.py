@@ -1,4 +1,4 @@
-"""Oriented multi-scale FAST + rotated binary descriptors, TPU-native.
+"""Oriented multi-scale FAST + rotated binary descriptors as fixed-shape XLA.
 
 Replaces the reference `ORBextractor` (src/ORBextractor.cc:1043-1105
 pipeline: ComputePyramid -> gridded FAST -> quadtree distribution ->
@@ -142,7 +142,7 @@ class FrameFeatures(NamedTuple):
 
 
 def unpack_descriptors_signed(desc: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
-    """[N, 8] uint32 -> [N, 256] +-1 (dtype) for MXU Hamming matmuls."""
+    """[N, 8] uint32 -> [N, 256] +-1 (dtype) for Hamming matmuls."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc[..., None] >> shifts) & jnp.uint32(1)  # [N, 8, 32]
     bits = bits.reshape(desc.shape[:-1] + (256,))
@@ -180,136 +180,6 @@ def fast_score_map(img: jax.Array) -> jax.Array:
     return jnp.maximum(jnp.max(m_bright, axis=0), jnp.max(m_dark, axis=0))
 
 
-# ---------------------------------------------------------------------------
-# fused FAST + border mask + NMS as a Pallas TPU kernel
-#
-# The jnp path (fast_score_map -> mask -> _nms3) materializes the [16, H, W]
-# ring stack and its running minima in HBM — ~25 full-image HBM passes per
-# level. The Pallas kernel keeps the whole working set of a row tile in
-# VMEM: one HBM read of the tile (+halo) and one write of the result.
-#
-# Halo handling: the same image is passed three times with block index
-# maps (i-1, i, i+1, edge-clamped); the kernel assembles a [TILE+8, W]
-# strip. At the first/last tile the assembled halo rows are wrong, but
-# every affected output row lies inside the EDGE_THRESHOLD=19 border the
-# kernel masks to zero anyway — same for the column wraparound introduced
-# by pltpu.roll lane shifts (|dx| <= 3 < 19).
-# ---------------------------------------------------------------------------
-
-_FAST_TILE = 48
-
-
-def _fast_nms_kernel(h: int, w: int, tile: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def lroll(x, dx):
-        """Shift columns so out[:, j] = x[:, j + dx] (pltpu.roll wants a
-        non-negative shift; wraparound lands in the masked border)."""
-        return pltpu.roll(x, shift=(-dx) % x.shape[1], axis=1)
-
-    def kernel(prev_ref, cur_ref, next_ref, out_ref):
-        i = pl.program_id(0)
-        strip = jnp.concatenate(
-            [prev_ref[tile - 4:], cur_ref[:], next_ref[:4]], axis=0
-        )  # [tile+8, W]; strip row r = image row i*tile - 4 + r
-        th2 = tile + 2
-        c = strip[3:3 + th2]  # centers for score rows i*tile-1 .. i*tile+tile
-        ds = []
-        for dx, dy in _RING:
-            sh = lroll(strip, dx) if dx else strip
-            ds.append(sh[3 + dy:3 + dy + th2] - c)
-        dcat = ds + ds[:_ARC - 1]
-        m_b = list(ds)
-        m_d = [-d for d in ds]
-        for j in range(1, _ARC):
-            for k in range(16):
-                m_b[k] = jnp.minimum(m_b[k], dcat[k + j])
-                m_d[k] = jnp.minimum(m_d[k], -dcat[k + j])
-        score = m_b[0]
-        for k in range(1, 16):
-            score = jnp.maximum(score, m_b[k])
-        for k in range(16):
-            score = jnp.maximum(score, m_d[k])
-        # border mask (EDGE_THRESHOLD) on global coordinates, applied
-        # BEFORE NMS exactly like the jnp path
-        margin = C.EDGE_THRESHOLD
-        gy = (
-            jax.lax.broadcasted_iota(jnp.int32, score.shape, 0)
-            + i * tile - 1
-        )
-        gx = jax.lax.broadcasted_iota(jnp.int32, score.shape, 1)
-        inb = (
-            (gy >= margin) & (gy < h - margin)
-            & (gx >= margin) & (gx < w - margin)
-        )
-        score = jnp.where(inb, score, 0.0)
-        # 3x3 NMS with the same lexicographic (score desc, index asc)
-        # tie-break as _nms3. Row neighbors come from sublane slices (an
-        # axis-0 roll would wrap rows across the tile boundary); column
-        # neighbors from lane rolls, whose wraparound lands in the masked
-        # border (where scores are already zero).
-        idx = gy * score.shape[1] + gx  # [th2, W] global-ish index: any
-        # strictly increasing row-major key works for the tie-break; using
-        # the padded width keeps it monotone across the wrapped columns
-        best_v = score[1:1 + tile]
-        best_i = idx[1:1 + tile]
-        for dy in (-1, 0, 1):
-            v_base = score[1 + dy:1 + dy + tile]
-            i_base = idx[1 + dy:1 + dy + tile]
-            for dx in (-1, 0, 1):
-                if dx == 0 and dy == 0:
-                    continue
-                v = lroll(v_base, dx) if dx else v_base
-                i2 = lroll(i_base, dx) if dx else i_base
-                take = (v > best_v) | ((v == best_v) & (i2 < best_i))
-                best_v = jnp.where(take, v, best_v)
-                best_i = jnp.where(take, i2, best_i)
-        out_ref[:] = jnp.where(
-            best_i == idx[1:1 + tile], score[1:1 + tile], 0.0
-        )
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def fast_nms_pallas(img: jax.Array, interpret: bool = False) -> jax.Array:
-    """Fused FAST score + border mask + 3x3 NMS (Pallas TPU kernel).
-
-    Numerically equivalent to
-    `_nms3(where(inb, fast_score_map(img), 0))` — validated against that
-    path in tests/test_orb.py."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = img.shape
-    tile = _FAST_TILE
-    hp = -(-h // tile) * tile
-    wp = -(-w // 128) * 128
-    imp = jnp.pad(img, ((0, hp - h), (0, wp - w)))
-    n_tiles = hp // tile
-
-    def idx_prev(i):
-        return (jnp.maximum(i - 1, 0), 0)
-
-    def idx_cur(i):
-        return (i, 0)
-
-    def idx_next(i):
-        return (jnp.minimum(i + 1, n_tiles - 1), 0)
-
-    spec = lambda im: pl.BlockSpec((tile, wp), im, memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _fast_nms_kernel(h, w, tile),
-        out_shape=jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-        grid=(n_tiles,),
-        in_specs=[spec(idx_prev), spec(idx_cur), spec(idx_next)],
-        out_specs=pl.BlockSpec((tile, wp), idx_cur, memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(imp, imp, imp)
-    return out[:h, :w]
-
-
 def _nms3(score: jax.Array) -> jax.Array:
     """3x3 non-maximum suppression; keeps the lexicographic (score desc,
     index asc) maximum of each window — exact tie-break towards the
@@ -342,18 +212,16 @@ def _nms3(score: jax.Array) -> jax.Array:
     return jnp.where(best_i == idx, score, 0.0)
 
 
-def _blur7(img: jax.Array) -> jax.Array:
-    """Separable 7x7 sigma=2 Gaussian blur (src/ORBextractor.cc:1086).
-
-    Shift-and-add instead of conv: a 1-channel NCHW conv cannot use the
-    MXU and runs ~70x slower on TPU (measured 3.6ms vs 0.05ms at 480x640);
-    14 fused multiply-adds on the dense map are pure VPU work.
-    """
+def fast_nms(img: jax.Array) -> jax.Array:
+    """FAST score map of one pyramid level, zeroed inside the
+    EDGE_THRESHOLD border (so patches and descriptors stay in bounds),
+    then 3x3 NMS. XLA fuses the ring-difference min/max chains."""
     h, w = img.shape
-    p = jnp.pad(img, ((3, 3), (0, 0)))
-    v = sum(float(_GAUSS7[i]) * p[i:i + h, :] for i in range(7))
-    p2 = jnp.pad(v, ((0, 0), (3, 3)))
-    return sum(float(_GAUSS7[i]) * p2[:, i:i + w] for i in range(7))
+    m = C.EDGE_THRESHOLD
+    ys = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+    xs = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+    inb = (ys >= m) & (ys < h - m) & (xs >= m) & (xs < w - m)
+    return _nms3(jnp.where(inb, fast_score_map(img), 0.0))
 
 
 def _moment_maps(img: jax.Array):
@@ -363,8 +231,7 @@ def _moment_maps(img: jax.Array):
     For each row offset dy the disk contributes a centered window of
     half-width w(dy); window sums come from one prefix-sum per row
     (box filter) and x-weighted sums from a second prefix-sum of x*I.
-    This replaces the [N,31,31] patch gather (TPU gathers serialize; the
-    dense formulation is ~50 vector ops + 2 cumsums).
+    The dense formulation is ~50 elementwise ops + 2 cumsums per level.
     """
     h, w = img.shape
     P = jnp.pad(img, _R)  # zero pad; keypoints are >= EDGE_THRESHOLD inside
@@ -403,8 +270,7 @@ def _resize_matrix(n_in: int, n_out: int):
     """Bilinear interpolation as a dense [n_out, n_in] matrix (half-pixel
     centers, edge-clamped — matches jax.image.resize(method='linear')).
 
-    Resizing becomes two matmuls on the MXU instead of a gather-based
-    resize: ~8x faster for the 8-level pyramid at 480x640."""
+    Resizing becomes two matmuls instead of a gather-based resize."""
     scale = n_in / n_out
     x = (np.arange(n_out) + 0.5) * scale - 0.5
     x0 = np.floor(x).astype(np.int64)
@@ -496,18 +362,18 @@ def _rotated_test_indices(xy, angle, wl, hl, base):
 
 
 # ---------------------------------------------------------------------------
-# MXU descriptor path
+# Descriptor path as one matmul
 #
-# TPU element gathers run at ~200M elem/s, so sampling 512 rotated BRIEF
-# points per keypoint (the reference's computeOrbDescriptor,
-# src/ORBextractor.cc:108-148) costs ~4ms/frame as a gather. Instead:
-#   1. extract one 37x37 RAW patch per keypoint (vmapped dynamic_slice —
-#      a block transfer, ~2.5x faster than element gathers), and
-#   2. multiply by a static matrix S [1369, Q*256+2] whose columns hold
+# Instead of sampling 512 rotated BRIEF points per keypoint as element
+# gathers (the reference's computeOrbDescriptor,
+# src/ORBextractor.cc:108-148):
+#   1. extract one RAW patch per keypoint (a vmapped dynamic_slice, which
+#      XLA lowers to one gather of whole blocks), and
+#   2. multiply by a static matrix S [48*48, Q*256+2] whose columns hold
 #      +/- 7x7 Gaussian stamps at the rotated test offsets — one bf16
-#      matmul on the MXU computes blur + sampling + comparison input for
-#      ALL Q rotation buckets at once, plus the IC_Angle disk moments
-#      (m10, m01) in the last two columns.
+#      matmul computes blur + sampling + comparison input for ALL Q
+#      rotation buckets at once, plus the IC_Angle disk moments (m10,
+#      m01) in the last two columns.
 # The per-keypoint bucket (from the exact moment-based angle) then selects
 # its 256 bits. Rotation is quantized to Q=64 buckets (5.6 deg); the
 # reference itself rounds rotated offsets to the pixel grid (~0.5px), so
@@ -516,9 +382,9 @@ def _rotated_test_indices(xy, angle, wl, hl, base):
 
 _PATCH_R = 21          # pattern radius <=17.7 rotated -> +/-18, +3 blur taps
 _PATCH_W = 2 * _PATCH_R + 1
-# stored patch extent: [48, 48] — 5 extra rows/columns of real pixels so
-# the patch is a DMA/tile-friendly block (the BRIEF matrix rows at the pad
-# positions are zero, so the extra pixels never contribute)
+# stored patch extent: [48, 48], the layout of S's rows. The 5 rows and
+# columns past the 43-pixel footprint carry real pixels, but S's rows at
+# those positions are zero, so they never contribute.
 _PATCH_WX = _PATCH_W + 5
 _PATCH_HP = _PATCH_W + 5
 # keypoints keep EDGE_THRESHOLD=19 from level borders; the patch reaches
@@ -575,173 +441,35 @@ _BRIEF_S_DEV: dict = {}
 
 
 def _brief_matrix(qb: int = _BRIEF_Q) -> jax.Array:
-    """S as a committed device array. The bf16 cast happens in numpy
-    (ml_dtypes) and device_put takes the numpy buffer, so this stays
-    concrete even when first reached inside a jit trace (a traced astype
-    here would leak a tracer into the cache) and the ~60MB matrix is
-    hoisted as a buffer instead of inlined into every HLO."""
-    if qb not in _BRIEF_S_DEV:
+    """S as a committed device array, one per default device (so a
+    process that also runs on its CPU device, as chip_smoke.py's
+    reference does, keeps each copy where it is used). The bf16 cast
+    happens in numpy (ml_dtypes) and device_put takes the numpy buffer,
+    so this stays concrete even when first reached inside a jit trace (a
+    traced astype here would leak a tracer into the cache) and the ~75MB
+    matrix is hoisted as a buffer instead of inlined into every HLO."""
+    key = (qb, str(jax.config.jax_default_device))
+    if key not in _BRIEF_S_DEV:
         import ml_dtypes
 
         # escape any enclosing trace: the cache must hold a CONCRETE array
         # (a cached tracer poisons every later trace)
         with jax.ensure_compile_time_eval():
-            _BRIEF_S_DEV[qb] = jnp.asarray(
+            _BRIEF_S_DEV[key] = jnp.asarray(
                 _brief_matrix_np(qb).astype(ml_dtypes.bfloat16)
             )
-    return _BRIEF_S_DEV[qb]
+    return _BRIEF_S_DEV[key]
 
 
-# ---------------------------------------------------------------------------
-# Pallas patch gather: XLA lowers the vmapped dynamic_slice to a gather
-# that costs ~2.5ms/frame for 1000 patches (latency-bound, one at a time).
-# Mosaic DMA slices must be tile-aligned — (8, 128) for f32 — so the
-# kernel copies the aligned [56, 256] superblock containing each patch
-# (start rounded DOWN to the tile grid), keeps 8 DMAs in flight, and
-# realigns in VMEM: the row residual dy in [0,8) by an 8-way static-slice
-# select, the lane residual dx in [0,128) by 7 conditional power-of-two
-# lane rolls (a vectorized barrel shifter across the chunk).
-# Output is [N, 48, 256] with the patch at the origin; the caller slices
-# the first 48 columns (cheap in XLA).
-# ---------------------------------------------------------------------------
+def gather_patches(stack: jax.Array, lvl, y0, x0) -> jax.Array:
+    """[L, Hp, Wp] level stack and [N] level / top-left row / top-left
+    column -> [N, _PATCH_HP, _PATCH_WX] blocks. A vmapped dynamic_slice,
+    which XLA lowers to one gather of whole blocks."""
+    def one(l, y, x):
+        return jax.lax.dynamic_slice(
+            stack, (l, y, x), (1, _PATCH_HP, _PATCH_WX))[0]
 
-_GATHER_CHUNK = 64
-_GATHER_DEPTH = 8
-_GATHER_BH = 56    # 48 patch rows + up to 7 residual = 55 -> 56 (x8)
-_GATHER_BW = 256   # 48 patch cols + up to 127 residual = 175 -> 256
-_USE_PALLAS_GATHER = True
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "chunk"))
-def gather_patches_pallas(padded, lyx, interpret: bool = False,
-                          chunk: int = _GATHER_CHUNK):
-    """padded [L, Hp, Wp] f32 (Hp multiple of 8 and >= y0a+56, Wp multiple
-    of 128 and >= x0a+256 for every keypoint); lyx [N, 3] int32 rows
-    (level, y0, x0). Returns [N, _PATCH_HP, _GATHER_BW] f32 with the
-    patch at [:, :48, :48]."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = lyx.shape[0]
-    # Mosaic keeps a scalar-prefetch SMEM copy of the index operands per
-    # grid step; past ~1024 keypoints the 1MB SMEM budget overflows
-    # (street's 2000-feature config: "Used 1.00M of 1.00M smem, exceeded
-    # by 1.1K"). A single-call [1024, 48, 256] f32 out buffer also sits
-    # at 12.6MB of scoped VMEM, which overflows the 16MB limit once the
-    # surrounding fused program (extraction + tracking + a mapper chunk,
-    # r4) claims its own share — the monocular desk config hit exactly
-    # this. Inputs past 512 rows therefore split into 512-row sub-calls,
-    # KEEPING the hardware-validated ch=64 DMA chunk inside each (the old
-    # >1024 path dropped to chunk=32, whose 16ms grids once stalled the
-    # pipeline into a keyframe storm when applied broadly).
-    if n > 512:
-        step = 512
-        outs = [
-            gather_patches_pallas(padded, lyx[i:i + step], interpret,
-                                  chunk=chunk)
-            for i in range(0, n, step)
-        ]
-        return jnp.concatenate(outs, axis=0)
-    ch, depth = chunk, _GATHER_DEPTH
-    n_pad = -(-n // ch) * ch
-    if n_pad != n:
-        lyx = jnp.concatenate([lyx, jnp.zeros((n_pad - n, 3), lyx.dtype)])
-    n_chunks = n_pad // ch
-
-    lvl = lyx[:, 0]
-    y0a = (lyx[:, 1] // 8) * 8
-    x0a = (lyx[:, 2] // 128) * 128
-    aligned = jnp.stack([lvl, y0a, x0a], axis=1)
-    # residuals ride a VMEM input: the vectorized realign selects need
-    # them as vectors, which scalar-prefetch SMEM reads cannot broadcast
-    res = jnp.stack(
-        [lyx[:, 1] - y0a, lyx[:, 2] - x0a], axis=1
-    ).astype(jnp.int32)
-
-    def kernel(al_ref, res_ref, src_ref, out_ref, scratch, sems):
-        i = pl.program_id(0)
-
-        def get_dma(k):
-            idx = i * ch + k
-            # the caller floors these starts to the tile grid; the hint is
-            # what lets Mosaic accept a dynamic tile-aligned DMA offset
-            y0 = pl.multiple_of(al_ref[idx, 1], 8)
-            x0 = pl.multiple_of(al_ref[idx, 2], 128)
-            return pltpu.make_async_copy(
-                src_ref.at[
-                    al_ref[idx, 0],
-                    pl.ds(y0, _GATHER_BH),
-                    pl.ds(x0, _GATHER_BW),
-                ],
-                scratch.at[k],
-                sems.at[k % depth],
-            )
-
-        for k in range(depth):
-            get_dma(k).start()
-
-        def body(k, carry):
-            get_dma(k).wait()
-
-            @pl.when(k + depth < ch)
-            def _():
-                get_dma(k + depth).start()
-
-            return carry
-
-        jax.lax.fori_loop(0, ch, body, 0)
-
-        blocks = scratch[:]                       # [ch, 56, 256]
-        dy = res_ref[:, 0][:, None, None]         # [ch, 1, 1]
-        dx = res_ref[:, 1]
-        cur = blocks[:, 0:_PATCH_HP, :]
-        for d in range(1, 8):
-            cur = jnp.where(dy == d, blocks[:, d:d + _PATCH_HP, :], cur)
-        for bit in range(7):
-            amt = 1 << bit
-            rolled = pltpu.roll(cur, shift=(-amt) % _GATHER_BW, axis=2)
-            take = (((dx >> bit) & 1) == 1)[:, None, None]
-            cur = jnp.where(take, rolled, cur)
-        out_ref[:] = cur
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_chunks,),
-        in_specs=[
-            pl.BlockSpec(
-                (ch, 2), lambda i, *_: (i, 0),
-                memory_space=pltpu.MemorySpace.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM),
-        ],
-        out_specs=pl.BlockSpec(
-            (ch, _PATCH_HP, _GATHER_BW),
-            lambda i, *_: (i, 0, 0),
-            memory_space=pltpu.MemorySpace.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((ch, _GATHER_BH, _GATHER_BW), jnp.float32),
-            pltpu.SemaphoreType.DMA((depth,)),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_pad, _PATCH_HP, _GATHER_BW), jnp.float32
-        ),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-            # the default 16MB scoped-vmem budget is 0.9MB short when this
-            # kernel compiles inside the 2000-feature stereo frame program
-            # (r5: the street h2h run died with "scoped allocation 16.90M
-            # ... limit 16.00M"); the standalone kernel fits, the fused
-            # module's layout choices pad the window
-            vmem_limit_bytes=48 * 1024 * 1024,
-        ),
-    )(aligned, res, padded)
-    return out[:n]
+    return jax.vmap(one)(lvl, y0, x0)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "shape"))
@@ -749,11 +477,10 @@ def _extract_impl(image: jax.Array, cfg: ORBConfig, shape):
     h, w = shape
     sizes = cfg.level_sizes(h, w)
     budgets = cfg.level_budgets()
-    margin = C.EDGE_THRESHOLD
 
-    # Per-level dense stages (score/NMS/select) are plain vector work; the
-    # orientation + descriptor stage runs once across all levels on the
-    # MXU (see _brief_matrix above).
+    # Per-level dense stages (score/NMS/select) are plain elementwise work;
+    # the orientation + descriptor stage runs once across all levels as
+    # one matmul (see _brief_matrix above).
     xy_lvl, resp_all, valid_all = [], [], []
     pyramid = []
     level_img = image
@@ -761,38 +488,16 @@ def _extract_impl(image: jax.Array, cfg: ORBConfig, shape):
         if lvl > 0:
             level_img = _resize_level(level_img, sizes[lvl])
         pyramid.append(level_img)
-        lh, lw = sizes[lvl]
-        if jax.default_backend() == "tpu":
-            # fused Pallas kernel: one HBM round trip per level instead of
-            # ~25 (ring stack + running minima stay in VMEM)
-            score = fast_nms_pallas(level_img)
-        else:
-            score = fast_score_map(level_img)
-            # mask borders so patches/descriptors stay in-bounds
-            ys = jax.lax.broadcasted_iota(jnp.int32, (lh, lw), 0)
-            xs = jax.lax.broadcasted_iota(jnp.int32, (lh, lw), 1)
-            inb = (
-                (ys >= margin) & (ys < lh - margin)
-                & (xs >= margin) & (xs < lw - margin)
-            )
-            score = jnp.where(inb, score, 0.0)
-            score = _nms3(score)
+        score = fast_nms(level_img)
         xy_l, resp, valid = _select_keypoints(score, budgets[lvl], cfg.cell, cfg.min_th)
         xy_lvl.append(xy_l)
         resp_all.append(resp)
         valid_all.append(valid)
 
     n_lvls = cfg.n_levels
-    wl_np = np.concatenate(
-        [np.full(budgets[l], sizes[l][1], np.int32) for l in range(n_lvls)]
-    )
-    hl_np = np.concatenate(
-        [np.full(budgets[l], sizes[l][0], np.int32) for l in range(n_lvls)]
-    )
     oct_np = np.concatenate(
         [np.full(budgets[l], l, np.int32) for l in range(n_lvls)]
     )
-    wl, hl = jnp.asarray(wl_np), jnp.asarray(hl_np)
     oct_dev = jnp.asarray(oct_np)
     xy_all = jnp.concatenate(xy_lvl)                       # [N, 2] level coords
     n_slots = xy_all.shape[0]
@@ -800,34 +505,20 @@ def _extract_impl(image: jax.Array, cfg: ORBConfig, shape):
     # one [48, 48] raw patch per keypoint from the zero-padded level stack
     # (selection enforces EDGE_THRESHOLD=19 > 18, so patches never cross a
     # level boundary into the padding; the 5 extra rows/columns carry real
-    # pixels that multiply zero rows of S). The stack is over-padded so the
-    # Pallas gather's tile-ALIGNED [56, 256] superblock reads stay in
-    # bounds for every keypoint: height to a multiple of 8 with 8 rows of
-    # headroom, width to a multiple of 128 with x0_aligned + 256 in range.
+    # pixels that multiply zero rows of S). The stack is just large enough
+    # that every clipped top-left corner's block lies inside it.
     pd = _PATCH_PAD
-    hi_y = h + 2 * pd - _PATCH_HP + (_PATCH_HP - _PATCH_W)  # legit top-left max
-    hi_x = w + 2 * pd + (_PATCH_WX - _PATCH_W) - _PATCH_WX
-    hp2 = -(-(h + 2 * pd + 16) // 8) * 8  # y0_aligned + 56 stays in range
-    wp2 = -(-(hi_x + 128 + _GATHER_BW) // 128) * 128
-    padded = jnp.zeros((n_lvls, hp2, wp2), jnp.float32)
+    hi_y = h + 2 * pd - _PATCH_W  # largest top-left corner
+    hi_x = w + 2 * pd - _PATCH_W
+    padded = jnp.zeros(
+        (n_lvls, hi_y + _PATCH_HP, hi_x + _PATCH_WX), jnp.float32)
     for l in range(n_lvls):
         padded = padded.at[
             l, pd : pd + sizes[l][0], pd : pd + sizes[l][1]
         ].set(pyramid[l])
     ys0 = jnp.clip(xy_all[:, 1] - _PATCH_R + pd, 0, hi_y)
     xs0 = jnp.clip(xy_all[:, 0] - _PATCH_R + pd, 0, hi_x)
-
-    if _USE_PALLAS_GATHER and jax.default_backend() == "tpu":
-        lyx = jnp.stack([oct_dev, ys0, xs0], axis=1).astype(jnp.int32)
-        blocks = gather_patches_pallas(padded, lyx)        # [N, 48, 256]
-        patches = blocks[:, :, :_PATCH_WX]                 # [N, 48, 48]
-    else:
-        def _one_patch(l, y, x):
-            return jax.lax.dynamic_slice(
-                padded, (l, y, x), (1, _PATCH_HP, _PATCH_WX)
-            )[0]
-
-        patches = jax.vmap(_one_patch)(oct_dev, ys0, xs0)  # [N, 48, 48]
+    patches = gather_patches(padded, oct_dev, ys0, xs0)    # [N, 48, 48]
     S = _brief_matrix()
     out = jnp.dot(
         patches.reshape(n_slots, _PATCH_HP * _PATCH_WX).astype(jnp.bfloat16),

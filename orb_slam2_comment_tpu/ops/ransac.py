@@ -1,6 +1,6 @@
 """Batched RANSAC solvers: PnP (relocalization) and Sim3 (loop alignment).
 
-TPU redesign of the reference's hypothesis-at-a-time RANSAC loops:
+Device redesign of the reference's hypothesis-at-a-time RANSAC loops:
 hypotheses are embarrassingly parallel, so ALL of them are generated,
 solved and scored in one batched program.
 
@@ -349,7 +349,7 @@ def sim3_ransac(
     seed: int = 0,
     # 512 batched hypotheses vs the reference's 300 sequential iterations
     # (Sim3Solver::SetRansacParameters, LoopClosing.cc:301): hypotheses are
-    # embarrassingly parallel on the MXU, so sampling density is free
+    # embarrassingly parallel on the device, so sampling density is cheap
     n_hyp: int = 512,
     min_inliers: int = 20,
 ) -> Sim3Result:

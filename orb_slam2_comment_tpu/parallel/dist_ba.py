@@ -1,7 +1,7 @@
 """Distributed bundle adjustment over a jax.sharding.Mesh.
 
 The reference is a single-process pthread pipeline with no distributed
-backend (SURVEY.md §2c); this module is the TPU-native scaling axis the
+backend (SURVEY.md §2c); this module is the multi-device scaling axis the
 rebuild adds: the map's *observations* are sharded across devices, each
 device assembles its partial normal-equation blocks, and the reduced
 camera system is combined with psums — the

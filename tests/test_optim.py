@@ -217,9 +217,9 @@ class TestEssentialGraph:
 
 class TestPoseOptimizePallas:
     def test_matches_xla_path(self):
-        """The single-kernel Pallas LM (interpret mode) must agree with
-        optim.pose_optimize: same inlier set, pose within float tolerance
-        (closed-form vs jacfwd Jacobians)."""
+        """The single-kernel Triton LM (interpret mode) must agree with
+        the XLA path: same inlier set, pose within float tolerance (both
+        use closed-form Jacobians, summed in another order)."""
         import jax.numpy as jnp
 
         from orb_slam2_comment_tpu.ops import geometry as geo
@@ -246,12 +246,19 @@ class TestPoseOptimizePallas:
         obs = jnp.asarray(uvr.astype(np.float32))
         octave = jnp.asarray(r.integers(0, 4, N).astype(np.int32))
         stereo = jnp.asarray(r.random(N) < 0.7)
-        valid = jnp.ones(N, bool)
+        # unassociated slots, some behind the camera: their huge (masked)
+        # Jacobians must not poison the normal equations
+        valid_np = np.ones(N, bool)
+        bad = r.choice(np.setdiff1d(np.arange(N), out_idx), 30,
+                       replace=False)
+        valid_np[bad] = False
+        Xw = Xw.at[bad[:15], 2].set(-5.0)
+        valid = jnp.asarray(valid_np)
         T0 = geo.se3_exp(
             jnp.asarray([0.08, -0.04, 0.06, 0.015, -0.02, 0.006], jnp.float32)
         )
 
-        ref = optim.pose_optimize(
+        ref = optim.pose_optimize_xla(
             T0, Xw, obs, octave, stereo, valid, inv_s2, K, BF
         )
         got = pose_optimize_pallas(
